@@ -1,10 +1,10 @@
-"""pycusdr_tpu — a TPU-native software-defined-radio modem framework.
+"""pycusdr_tpu — a JAX software-defined-radio modem framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of pyCuSDR
 (GPU satellite ground-station modem, reference: /root/reference):
 
 * real-time Doppler search + correction via banks of matched filters
-  (frequency-domain correlation, fused on the MXU instead of batched
+  (frequency-domain correlation as one dense contraction instead of batched
   lag-domain IFFTs — see ``pycusdr_tpu.ops.doppler_search``),
 * symbol-rate / symbol-timing recovery and soft-bit demodulation,
 * multi-channel diversity combining by trust-weighted bit voting,
@@ -15,14 +15,14 @@ A from-scratch JAX/XLA/Pallas rebuild of the capabilities of pyCuSDR
 * ZMQ edge interfaces (GNU Radio IQ in/out), XML-RPC control plane and
   a hamlib-compatible rig server for gpredict,
 * multi-chip scaling via ``jax.sharding`` meshes (channels / Doppler
-  bins / time-blocks sharded over ICI with halo exchange).
+  bins / time-blocks sharded over the devices with halo exchange).
 
 Layer map (mirrors SURVEY.md §1 of the reference analysis):
 
 =========  ====================================================
 subpkg     role
 =========  ====================================================
-ops        XLA/Pallas device kernels (the performance core)
+ops        device ops in jnp/lax (the performance core)
 dsp        block-level demod algorithm: jitted graph + numpy golden
 models     radio-backend demodulator frontends (UHF, STX)
 protocol   protocol plug-ins (CC11xx + benchmark modulations)

@@ -1,4 +1,4 @@
-"""BER waterfall with a reference arm: TPU chain vs numpy golden on
+"""BER waterfall with a reference arm: device chain vs numpy golden on
 IDENTICAL noisy signals.
 
 BASELINE.json's north-star metric is "BER delta vs reference at fixed
@@ -9,7 +9,7 @@ without one: every (modulation, SNR, run) generates ONE deterministic
 noisy 10,000-bit packet (reference packet length,
 ``create_signals.py:10-26``) and streams the SAME samples through
 
-* arm A — the jitted TPU block graph (``dsp.block``), and
+* arm A — the jitted block graph (``dsp.block``), and
 * arm B — the numpy golden chain (``dsp.reference``),
 
 both wrapped in the SAME streaming frontend (``models.Demodulator``
@@ -110,16 +110,7 @@ def _stream_one(demod, protocol, conf, sig, expected_bytes, n_bits):
 
 def run_delta(modulations=("FSK", "GFSK", "GMSK", "BPSK"), snrs=None, runs=10,
               packetLen=10000, seed=123, spSym=16, baud=9600, blockSize=None,
-              overlap=None, out_path=None, verbose=True, matmul_dtype=None,
-              four_step_route=None):
-    if four_step_route is not None:
-        # gate for FOUR_STEP_ROUTE "block" (one 2n-wide block matmul per
-        # complex DFT stage, ~1-ulp different accumulation; measured
-        # +2.7% at B=16 on chip) — same waterfall discipline as the bf16
-        # gate before any default flip
-        import pycusdr_tpu.ops.cfft as cfft
-
-        cfft.FOUR_STEP_ROUTE = four_step_route
+              overlap=None, out_path=None, verbose=True, matmul_dtype=None):
     from pycusdr_tpu.bench.ber import modulation_bandwidth
     from pycusdr_tpu.dsp.signal_gen import awgn, get_padded_packet, packet_data
 
@@ -140,7 +131,7 @@ def run_delta(modulations=("FSK", "GFSK", "GMSK", "BPSK"), snrs=None, runs=10,
             conf["GPU"]["UHF"]["overlap"] = overlap
         if matmul_dtype is not None:
             # arm A only by construction: the golden arm is numpy f64/f32
-            # and never touches the device matmul routes
+            # and never touches the device contraction
             conf["GPU"]["UHF"]["matmulDtype"] = matmul_dtype
 
         arm_a, proto_a = _make_arm(conf, f"bench_{mod}", golden=False)
@@ -179,10 +170,10 @@ def run_delta(modulations=("FSK", "GFSK", "GMSK", "BPSK"), snrs=None, runs=10,
                 "modulation": mod, "snr_db": float(snr),
                 "ebn0_db": float(snr + 10 * np.log10(bw / baud)),
                 "runs": runs,
-                "found_tpu": found_a, "found_golden": found_b,
-                "ber_tpu": ber_a, "ber_golden": ber_b,
+                "found_device": found_a, "found_golden": found_b,
+                "ber_device": ber_a, "ber_golden": ber_b,
                 "ber_delta": ber_a - ber_b,
-                "bit_errors_tpu": errs_a, "bit_errors_golden": errs_b,
+                "bit_errors_device": errs_a, "bit_errors_golden": errs_b,
             }
             rows.append(row)
             if verbose:
@@ -207,15 +198,11 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--matmul-dtype", default=None,
                     choices=["float32", "bfloat16"],
-                    help="route arm A's DFT-factor matmuls through this "
+                    help="route arm A's Doppler contraction through this "
                          "operand dtype (the gate for shipping the bf16 "
-                         "route; see ops/cfft.py MATMUL_DTYPE)")
-    ap.add_argument("--four-step-route", default=None,
-                    choices=["split4", "block"],
-                    help="route arm A's four-step FFT stages through this "
-                         "evaluation (gate for flipping FOUR_STEP_ROUTE)")
+                         "route; see ops/doppler_search.py MATMUL_DTYPE)")
     ap.add_argument("--cpu", action=argparse.BooleanOptionalAction, default=True,
-                    help="run on the CPU backend (--no-cpu targets the TPU)")
+                    help="run on the CPU backend (--no-cpu targets the GPU)")
     args = ap.parse_args()
     if args.cpu:
         import jax
@@ -223,8 +210,7 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     run_delta(tuple(args.modulations), args.snrs, args.runs,
               packetLen=args.packetLen, blockSize=args.blockSize,
-              out_path=args.out, matmul_dtype=args.matmul_dtype,
-              four_step_route=args.four_step_route)
+              out_path=args.out, matmul_dtype=args.matmul_dtype)
 
 
 if __name__ == "__main__":

@@ -66,7 +66,7 @@ def main():
     ap.add_argument("--basePort", type=int, default=27200)
     ap.add_argument("--out", default=None)
     ap.add_argument("--cpu", action=argparse.BooleanOptionalAction, default=True,
-                    help="run on the CPU backend (--no-cpu targets the TPU)")
+                    help="run on the CPU backend (--no-cpu targets the GPU)")
     args = ap.parse_args()
     if args.cpu:
         import os

@@ -375,8 +375,10 @@ class SoftCombiner(Process):
     # ---------------- main loop ----------------
 
     def run(self):
+        from pycusdr_tpu.globals import pin_host_stage_to_cpu
         from pycusdr_tpu.utils.logger import child_logger_setup
 
+        pin_host_stage_to_cpu()
         child_logger_setup(self.logLevel)
         time.sleep(0.5)
         ctx = zmq.Context()

@@ -3,7 +3,7 @@
 The reference advertises Reed-Solomon support via the external
 ``pyreedsolomon`` package (``README.md:4``; no RS call exists inside the
 reference repo itself). This is a self-contained implementation so the
-TPU framework carries the capability natively: systematic RS(n, k)
+framework carries the capability natively: systematic RS(n, k)
 encode, and decode with error correction up to t = (n-k)/2 symbols
 (Berlekamp–Massey + Chien search + Forney algorithm).
 

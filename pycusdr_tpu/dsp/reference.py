@@ -3,11 +3,11 @@
 This transliterates the *math* of the reference hot path
 (``demodulator/demodulator_base.py:567-859`` + the kernels in
 ``demodulator/cuda_kernels.cu``) into plain numpy. It exists to
-golden-test the jitted TPU graph in ``dsp/block.py`` — every stage of
-the TPU graph must match this to float tolerance, and all discrete
+golden-test the jitted device graph in ``dsp/block.py`` — every stage of
+the device graph must match this to float tolerance, and all discrete
 decisions (argmaxes, symbols, bits) must match exactly on clean inputs.
 
-Key algebraic identity exploited by the TPU build and also used here:
+Key algebraic identity exploited by the device graph and also used here:
 the reference computes, per (doppler d, mask m),
 
     E[d,m] = sum_n |IFFT_unnorm(S[(k+s_d) mod N] * M[m,k])[n]|^2 / 2^18
@@ -260,7 +260,7 @@ def find_centres(X: np.ndarray, spec: DemodSpec, spSym: float, codeOffset: float
         # first/last slots fall inside the healing overlap margin)
         A = min(max(A0, 0), max(N - W, 0))
         win = P2[:, A : A + W]  # (M, W)
-        # (offset, mask)-lexicographic first-win, matching the TPU
+        # (offset, mask)-lexicographic first-win, matching the device
         # kernel's column-max-first formulation (the CUDA loop is
         # (mask, offset)-major, cuda_kernels.cu:126-139 — the orders
         # differ only on exact float ties between different pairs)

@@ -51,8 +51,9 @@ class DemodSpec:
     centreFreqOffset: float = 0.0
     voteWeight: int = 1
     snr_window: int = 5
-    # operand dtype for the DFT-factor matmuls: None/"float32" or
-    # "bfloat16" (f32 accumulation; BER-delta-gated, see ops/cfft.py)
+    # operand dtype for the Doppler contraction: None/"float32" or
+    # "bfloat16" (f32 accumulation; BER-delta-gated, see
+    # ops/doppler_search.py)
     matmul_dtype: Optional[str] = None
 
     # derived (filled by build_spec)

@@ -33,22 +33,37 @@ TRUST_NORMAL_SCALE = 2
 def apply_platform_override():
     """Honour the ``PYCUSDR_JAX_PLATFORM`` env var (e.g. ``cpu``).
 
-    Some deployment images pin the JAX platform via ``jax.config`` in a
-    ``sitecustomize`` hook, which an env-level ``JAX_PLATFORMS`` cannot
-    override — only a later ``jax.config.update`` can. Spawned worker
-    processes (runtime/demodulator_process.py) call this before their
-    first device use so tests and CPU deployments can force a backend.
+    Spawned device workers (runtime/demodulator_process.py,
+    runtime/channel_group_process.py) call this before their first
+    device use so tests and CPU deployments can force a backend. Raises
+    when the platform can no longer be set (a backend is already up).
     """
     import os
 
     plat = os.environ.get("PYCUSDR_JAX_PLATFORM")
     if plat:
-        try:
-            import jax
+        import jax
 
-            jax.config.update("jax_platforms", plat)
-        except Exception as e:  # backend already initialized: keep going
-            log.warning("could not apply platform override %r: %s", plat, e)
+        jax.config.update("jax_platforms", plat)
+        got = jax.default_backend()
+        if got != {"cuda": "gpu", "rocm": "gpu"}.get(plat, plat):
+            raise RuntimeError(
+                f"PYCUSDR_JAX_PLATFORM={plat!r} not applied: JAX's backend is {got!r}")
+
+
+def pin_host_stage_to_cpu():
+    """Keep a host-stage process (decoder, combiner, modulator) off the
+    accelerator: any JAX it imports (e.g. the CCSDS Viterbi) runs on the
+    CPU, so only the demodulator processes open the card. Call first
+    thing in the child's ``run()``."""
+    import os
+    import sys
+
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
+
+
 TRUST_SYMBOL_ERROR = -1
 TRUST_CLIPPED = -2
 

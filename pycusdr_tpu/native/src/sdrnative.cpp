@@ -1,8 +1,8 @@
 // Native host runtime for pycusdr_tpu.
 //
 // The reference's native layer is its CUDA kernel suite + cuFFT FFI
-// (pyCuSDR/demodulator/cuda_kernels.cu, lib/cufft.py). On TPU the
-// device math lives in XLA/Pallas; what remains hot on the HOST is the
+// (pyCuSDR/demodulator/cuda_kernels.cu, lib/cufft.py). Here the
+// device math lives in XLA; what remains hot on the HOST is the
 // streaming edge: IQ re-blocking, complex->split-planar conversion for
 // the device graph, the decoder's header/sync correlation sweep, and
 // the per-packet PN9/CRC bit twiddling. Those live here, exposed as a
@@ -92,7 +92,7 @@ int64_t rb_pop(rb_t* rb, float* out, int64_t n) {
 
 // ---------------------------------------------------------------------------
 // complex64 (interleaved) -> split planar float32 [re | im].
-// The device graph is complex-free (ops/cfft.py); this is the per-block
+// The device graph takes split [re, im] blocks (ops/cfft.py); this is the per-block
 // host boundary conversion.
 // ---------------------------------------------------------------------------
 

@@ -7,8 +7,7 @@ but is written as pure, statically-shaped jnp so the whole block chain
 fuses into a single XLA graph with one host transfer per block.
 
 Complex tensors are carried split as a length-2 ``[re, im]`` axis of
-float32 (see ``ops.cfft``) — this TPU backend has no complex dtype, and
-split storage keeps the last (lane) axis at the transform length.
+float32 (see ``ops.cfft``).
 """
 
 import jax
@@ -62,10 +61,8 @@ def apply_best_doppler(S_ri: jnp.ndarray, masks_ri: jnp.ndarray, shift) -> jnp.n
 
 def _roll_spectrum(S_ri: jnp.ndarray, shift) -> jnp.ndarray:
     """S[(k + shift) mod N] for a TRACED shift without a gather: double
-    the spectrum and take one contiguous dynamic slice. A traced-index
-    modular ``jnp.take`` is a full-N dynamic gather, and batched dynamic
-    gathers serialize on this backend (measured: +520 us/block at B=64
-    inside the full graph vs +0 for this form)."""
+    the spectrum and take one contiguous dynamic slice instead of a
+    full-N dynamic gather."""
     N = S_ri.shape[-1]
     S2 = jnp.concatenate([S_ri, S_ri], axis=-1)  # (2, 2N)
     start = jnp.mod(jnp.asarray(shift, jnp.int32), N)
@@ -90,9 +87,8 @@ def apply_best_doppler_power_cols(S_ri: jnp.ndarray, masks_ri: jnp.ndarray, shif
     only consumers perform — sum over the [sum_lo, sum_hi) mask subset
     (symbol timing, cuda_kernels.cu:191-205) and max/argmax over all
     masks with lowest-mask tie-break (symbol detection,
-    cuda_kernels.cu:78-146) — fused into the inverse transform's final
-    stage so the (M, N) power tensor never reaches HBM (see
-    ``cfft.ifft_unnorm_power_colreduce_ri``). Bit-identical to reducing
+    cuda_kernels.cu:78-146) — taken in one fused pass over the inverse
+    transform's power (see ``cfft.ifft_unnorm_power_colreduce_ri``). Bit-identical to reducing
     the two-step route's P2 (exactness-tested).
 
     Returns (colsum (N,), colmax (N,), colargmax (N,) i32).
@@ -227,14 +223,11 @@ def _window_scan_vanherk(V, payload, W):
 
 
 #: columns of the symbol-slot gather source (2 carry data, the rest pad
-#: rows to a transfer-friendly width). The isolated gather is ~29%
-#: faster with 8 cols (4608×2 35.0 µs vs 4608×8 25.0 µs/lane,
-#: results/tmp/probe_gather_shapes_r4.py) but the IN-GRAPH effect is
-#: shape-dependent (interleaved A/B, probe_pad_r4.py): +5.7% on the
-#: chunk-evaluated batch path, −9% at whole-vmap B=16 (the pad write
-#: breaks a fusion there). Default 2; the chunked batch path overrides
-#: to 8 per graph (dsp.block.build_process_batch) — values read are
-#: identical either way, so mixing shapes stays bit-identical.
+#: rows to a wider transfer). Default 2; the chunked batch path
+#: overrides to 8 per graph (dsp.block.build_process_batch) — values
+#: read are identical either way, so mixing shapes stays bit-identical.
+#: Both widths were tuned on the system's first accelerator and have not
+#: been re-derived for the GPU.
 GATHER_PAD_COLS = 2
 
 _WINDOW_SCANS = {"tree": _window_scan_tree, "vanherk": _window_scan_vanherk}
@@ -247,15 +240,13 @@ def sliding_window_argmax(P2: jnp.ndarray, W: int, extras=(),
                           extra_bounds=(), packed=False):
     """Per-position window max/argmax: V[:, j] = max P2[:, j:j+W),
     I[:, j] = its absolute column index (earliest on ties), computed
-    with a log-shift elementwise tree — no gathers (batched dynamic
-    gathers serialize on this TPU backend). ``extras``: (row,) arrays
-    carried through the selection, returning the winner's value.
+    with a log-shift elementwise tree — no gathers. ``extras``: (row,)
+    arrays carried through the selection, returning the winner's value.
 
     The selection compares only V, so the index and every extra ride
     the tree as ONE f32 payload ``(I*b0 + e0)*b1 + e1 ...`` — exact
-    while ``(N+W)*prod(bounds) < 2^24`` — halving the tree's HBM
-    traffic vs carrying separate arrays (the tree is bandwidth-bound:
-    measured ~40% faster at B=64 on v5e with one extra). Callers MUST
+    while ``(N+W)*prod(bounds) < 2^24`` — halving the tree's memory
+    traffic vs carrying separate arrays. Callers MUST
     pass ``extra_bounds`` (one static exclusive upper bound per extra,
     values assumed nonnegative ints); a missing bound or a bounds
     product that leaves f32's exact-integer range raises ValueError.
@@ -332,25 +323,17 @@ def _blockscan_pack(Vcol: jnp.ndarray, pay: jnp.ndarray, W: int):
 def _select_rows_onehot(packed: jnp.ndarray, A: jnp.ndarray, Q: int = 128):
     """R[i] = packed[A[i]] as two exact one-hot contractions instead of
     a row gather. Factor the row index A = Q*q + r: contract q with an
-    MXU matmul against a (G, Q*C) retiling of ``packed``, then select r
+    matmul against a (G, Q*C) retiling of ``packed``, then select r
     elementwise. Every one-hot term is exactly 0 or 1 in f32 so the
-    sums reproduce the gathered values BIT-EXACTLY.
+    sums reproduce the gathered values BIT-EXACTLY. Kept as an A/B
+    alternative to the gather (``select_route="onehot"``).
 
-    An unbatched 4-8k-row gather costs ~0.5 ms on this backend
-    (per-index bound); the matmul form is ~2 GFLOP of dense MXU work
-    (~2x faster at batch 1, measured). The batched/vmapped path keeps
-    the gather — at B=64 the gather amortizes and the matmul's 64x
-    FLOPs would lose.
-
-    precision=HIGHEST is CORRECTNESS, not tuning: the TPU's default
-    matmul precision truncates f32 operands toward bfloat16, and the
-    payload column carries packed integers up to ~2^23 — at default
-    precision the select returns quantized garbage on real hardware
-    (found on-chip: every latency-mode packet failed to decode while
-    the gather route decoded; CPU tests could not catch it because CPU
-    matmuls are always full f32). With HIGHEST the operands are split
-    exactly (payload < 2^24 and one-hot 0/1 are exact in the 3-part
-    bf16 decomposition), restoring the bit-exact guarantee.
+    precision=HIGHEST is CORRECTNESS, not tuning: at default precision
+    an accelerator may round f32 operands (bfloat16 passes, or TF32 on
+    the GPU), and the payload column carries packed integers up to
+    ~2^23 — the select would return quantized garbage, which CPU tests
+    cannot catch because CPU matmuls are always full f32. With HIGHEST
+    the products are true f32 and the select stays bit-exact.
     """
     n_rows, C = packed.shape
     G = -(-n_rows // Q)
@@ -379,11 +362,9 @@ def _select_rows_grouped(packed: jnp.ndarray, A: jnp.ndarray, sp_max: float,
     """R[i] = packed[A[i]] exploiting that A is monotone with bounded
     stride: ``group`` consecutive slots always land inside a patch of
     span (group-1)*sp_max+1 rows, so ONE gather of two aligned
-    tile-rows per GROUP replaces ``group`` tiny row gathers (the slot
-    read is row-latency-bound on this backend — measured ~40 us/block
-    for the naive 4.5k-row gather at flagship shapes, independent of
-    batch). The within-patch read is an exact iota-compare one-hot
-    (0/1 f32 contraction -> bit-exact), a few MFLOP.
+    tile-rows per GROUP replaces ``group`` tiny row gathers. The
+    within-patch read is an exact iota-compare one-hot (0/1 f32
+    contraction -> bit-exact), a few MFLOP.
 
     ``sp_max``: static upper bound on A[i+1]-A[i] (the demod graph's
     slot stride is spSym <= Nfft/code_idx_lo by construction of the
@@ -414,8 +395,8 @@ def _select_rows_grouped(packed: jnp.ndarray, A: jnp.ndarray, sp_max: float,
     rel = Ag - (q * Tp)[:, None]             # (Sg, G) in [0, 2*Tp)
     sel = (rel[:, :, None] == jnp.arange(2 * Tp, dtype=A.dtype)[None, None, :]
            ).astype(packed.dtype)            # exact 0/1
-    # HIGHEST: the payload ints exceed bf16's mantissa — default TPU
-    # matmul precision would quantize them (see _select_rows_onehot)
+    # HIGHEST: the payload ints exceed bf16's and TF32's mantissas —
+    # default matmul precision would quantize them (see _select_rows_onehot)
     R = jnp.einsum("sgt,stc->sgc", sel, patch,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -434,30 +415,14 @@ def find_centres(P2: jnp.ndarray, spSym, codeOffset, *, Nfft: int, windowWidth: 
     the (mask, offset) with the largest magnitude in a ``windowWidth``
     window; emit (winning mask, centre sample, magnitude).
 
-    TPU formulation: the mask axis is reduced FIRST (per-column max +
-    argmax — max over (mask, offset) is associative, so this halves no
+    Formulation: the mask axis is reduced FIRST (per-column max +
+    argmax — max over (mask, offset) is associative, so this loses no
     information), then the per-window max/argmax over the single
     column-max row is precomputed for EVERY start position
     (``sliding_window_argmax``) with the winning-mask index riding the
-    tree, and each slot reads one row of a packed (N+W, C) matrix —
-    an 8-mask graph does an 8x smaller tree and an 8x smaller gather
-    than the previous per-mask formulation (measured 4.7x faster at
-    B=64 on v5e, 490 -> 104 us/block; batched minor-axis gathers
-    serialize on this backend).
-
-    The slot row read itself is the FLOOR SHAPE on this backend
-    (round-5 exhaustive probe, results/tmp/probe_slotread_r5.py /
-    probe_tiled_r5.py / probe_b1_routes_r5.py): plain narrow-row
-    ``jnp.take`` measures 16-38 us/block across batch shapes, while
-    every alternative loses — vmap(dynamic_slice) patch groups 3-14x
-    (batched dynamic slices serialize), tile-aligned fat-row takes
-    1.1-2.1x (512 B rows go bytes-bound in-graph), the HIGHEST-precision
-    one-hot matmul 1.44x at B=1, and the slot-pruned blockscan /
-    van Herk scans 2.7-3x at B=1 (W-step small-array scans serialize).
-    At B=1 the gather is serial-DMA row latency (~21 ns/row, ~99
-    us/block measured by the contiguous-prefix cost-model arm) — the
-    realizable lever for single-block latency is batching, not
-    rerouting this read.
+    tree, and each slot reads one row of a packed (N+W, C) matrix — an
+    M-mask graph does an M-times smaller tree and gather than a per-mask
+    formulation.
 
     Tie-break: (offset, mask)-lexicographic first-win — the earliest
     window sample wins, then the lowest mask at that sample. The CUDA
@@ -479,9 +444,8 @@ def find_centres(P2: jnp.ndarray, spSym, codeOffset, *, Nfft: int, windowWidth: 
     per-slot gather. When given, a 6th output (bool[numSymMax]) is
     appended.
 
-    ``select_route``: "gather" (default; right for vmapped batches) or
-    "onehot" (bit-exact MXU-matmul row select, ~2x faster at batch 1 —
-    see ``_select_rows_onehot``).
+    ``select_route``: "gather" (default) or "onehot" (bit-exact one-hot
+    matmul row select, see ``_select_rows_onehot``) or "grouped".
 
     ``cols``: optional precomputed ``(Vcol, m_star)`` per-column
     (max, argmax) over masks from the fused mask-bank route
@@ -504,7 +468,7 @@ def find_centres(P2: jnp.ndarray, spSym, codeOffset, *, Nfft: int, windowWidth: 
 
     if cols is not None:
         # fused mask-bank route: the per-column (max, argmax) over masks
-        # arrive precomputed from the transform epilogue
+        # arrive precomputed from the inverse transform
         # (apply_best_doppler_power_cols) and P2 never exists
         Vcol, m_star = cols
         m_star = m_star.astype(jnp.int32)
@@ -546,11 +510,7 @@ def find_centres(P2: jnp.ndarray, spSym, codeOffset, *, Nfft: int, windowWidth: 
         # value + packed (index, mask[, clip]) payload: 2 f32 columns
         # for ONE major-axis row gather; decode after the small slot
         # read (payload ints < 2^24 are exact in f32). The row is PADDED
-        # to GATHER_PAD_COLS: the gather is row-transfer-overhead-bound
-        # on this backend and 32-byte rows amortize it — raw microbench
-        # 4608×2 35.0 µs vs 4608×8 25.0 µs per lane at B=16
-        # (results/tmp/probe_gather_shapes_r4.py); the pad write is an
-        # elementwise pass (~2 µs). Values read are identical.
+        # to GATHER_PAD_COLS; values read are identical.
         pad = GATHER_PAD_COLS if gather_pad is None else gather_pad
         if pad < 2:
             # the packed row always carries 2 real columns (V, payload);
@@ -588,7 +548,7 @@ def extract_bits_lut(symbols: jnp.ndarray, bitLUT: jnp.ndarray) -> jnp.ndarray:
     """Centre-bit LUT path (reference demodulator_base.py:1012-1023).
 
     One-hot select instead of ``jnp.take``: the LUT has only num_masks
-    entries and batched gathers serialize on this backend."""
+    entries."""
     M = bitLUT.shape[0]
     sel = symbols[:, None] == jnp.arange(M, dtype=symbols.dtype)[None, :]
     return (sel * bitLUT[None, :].astype(jnp.int32)).sum(axis=1).astype(jnp.int8)
@@ -605,8 +565,8 @@ def extract_bits_nrzs(symbols: jnp.ndarray, symbolLUT: jnp.ndarray):
     """
     s_prev = symbols
     s_next = jnp.roll(symbols, -1)
-    # one-hot row selection instead of jnp.take: batched gathers
-    # serialize on this backend, a (n, M) x (M, K) matmul does not
+    # one-hot row selection instead of jnp.take: an exact integer
+    # (n, M) x (M, K) product
     M = symbolLUT.shape[0]
     sel = (s_prev[:, None] == jnp.arange(M, dtype=s_prev.dtype)[None, :]
            ).astype(jnp.int32)
@@ -628,8 +588,7 @@ def dilate_mask_dynamic(mask: jnp.ndarray, halfwidth,
 
     The windowed count ``c[i+hw] - c[i-hw-1]`` is read with two
     CONTIGUOUS ``dynamic_slice``s of a padded cumsum instead of two
-    N-element gathers — dynamic 1-D gathers serialize on the TPU
-    (measured ~2 ms/block at N=2^16; the slices are ~free). Exact for
+    N-element gathers. Exact for
     ``halfwidth <= hw_max``; wider requests clamp (a dilation radius
     beyond 2048 samples only arises from garbage symbol-rate estimates
     on pure noise, where trust tagging is moot anyway).

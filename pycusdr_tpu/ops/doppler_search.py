@@ -1,4 +1,4 @@
-"""Doppler search as MXU work — the performance core of the Rx chain.
+"""Doppler search as one dense contraction — the search core of the Rx chain.
 
 The reference implements the Doppler search as: build the 3-D
 ``doppler x mask x Nfft`` product tensor, batch-IFFT it back to the lag
@@ -7,11 +7,11 @@ domain, and reduce |.|^2 over the lag axis
 defaults that is 512 IFFTs of 2^16 points and a 256 MB intermediate —
 per block.
 
-On TPU we use Parseval instead: the lag-domain energy of each (d, m)
+Here Parseval is used instead: the lag-domain energy of each (d, m)
 correlation equals ``N * sum_k |S[(k+s_d) mod N]|^2 * |M[m,k]|^2``, so
 the whole search collapses to
 
-    E = Pshift @ Q.T        # (D,N) x (N,M) on the MXU
+    E = Pshift @ Q.T        # (D,N) x (N,M), one matrix product
 
 where ``P = |S|^2`` and ``Q = |M|^2`` is a precomputed constant. No 3-D
 tensor, no IFFTs, three orders of magnitude less FLOPs and HBM traffic.
@@ -28,6 +28,52 @@ import numpy as np
 
 ABS_SUM_SCALE = 262144.0  # 2^18, matches reference blockAbsSumAtomic scaling
 
+#: precision of the f32 Doppler contractions. On the GPU a float32
+#: product at DEFAULT precision may run in TF32 (~10 mantissa bits);
+#: HIGHEST keeps true f32, so the energies match the numpy reference to
+#: f32 rounding and the Doppler bin never depends on the card's choice.
+CONTRACTION_PRECISION = jax.lax.Precision.HIGHEST
+
+#: operand dtype for the Doppler contraction: "float32" (default) or
+#: "bfloat16" (f32 accumulation, ``preferred_element_type``; only the
+#: operand quantization differs, gated by ``bench/ber_delta.py
+#: --matmul-dtype bfloat16``). Graphs that need exact integer
+#: arithmetic (one-hot selects, payload packing) never route through
+#: this flag. Read at TRACE time — set via ``matmul_dtype(...)`` or build
+#: graphs with ``dsp.block.build_process_block(..., fft_dtype=...)``.
+MATMUL_DTYPE = "float32"
+
+
+class matmul_dtype:
+    """Scoped override of MATMUL_DTYPE (use around graph TRACING —
+    i.e. around the build for jit=False graphs, or around the first
+    call for jitted ones; ``dsp.block.build_process_block`` wraps its
+    graph so the flag is pinned at build time regardless)."""
+
+    def __init__(self, dt: str):
+        if dt not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown matmul dtype {dt!r}")
+        self.dt = dt
+
+    def __enter__(self):
+        global MATMUL_DTYPE
+        self.old = MATMUL_DTYPE
+        MATMUL_DTYPE = self.dt
+        return self
+
+    def __exit__(self, *exc):
+        global MATMUL_DTYPE
+        MATMUL_DTYPE = self.old
+        return False
+
+
+def _mm(sub: str, a, b):
+    """Contraction honouring MATMUL_DTYPE, f32 accumulation."""
+    dt = jnp.bfloat16 if MATMUL_DTYPE == "bfloat16" else jnp.float32
+    return jnp.einsum(sub, a.astype(dt), b.astype(dt),
+                      preferred_element_type=jnp.float32,
+                      precision=CONTRACTION_PRECISION)
+
 
 def make_shift_gather_indices(Nfft: int, shifts: np.ndarray) -> np.ndarray:
     """(D, Nfft) int32 gather map: row d holds (k + s_d) mod N."""
@@ -35,7 +81,7 @@ def make_shift_gather_indices(Nfft: int, shifts: np.ndarray) -> np.ndarray:
 
 
 def doppler_energy_matmul(P: jnp.ndarray, Q_T: jnp.ndarray, shift_idx: jnp.ndarray) -> jnp.ndarray:
-    """E[d,m] = N/2^18 * sum_k P[(k+s_d)%N] Q[m,k] as one MXU matmul.
+    """E[d,m] = N/2^18 * sum_k P[(k+s_d)%N] Q[m,k] as one matmul.
 
     P: (N,) f32 signal power spectrum. Q_T: (N, M) f32 mask power bank
     (transposed, constant). shift_idx: (D, N) int32 constant gather map.
@@ -46,6 +92,7 @@ def doppler_energy_matmul(P: jnp.ndarray, Q_T: jnp.ndarray, shift_idx: jnp.ndarr
         Pshift,
         Q_T,
         dimension_numbers=(((1,), (0,)), ((), ())),
+        precision=CONTRACTION_PRECISION,
         preferred_element_type=jnp.float32,
     )
     return E * (N / ABS_SUM_SCALE)
@@ -71,9 +118,8 @@ def doppler_energy_corr(P: jnp.ndarray, Qf_ri: jnp.ndarray, shift_idx_cols: jnp.
     c_m[s] = ifft(fft(P) * conj(fft(|Q_m|^2)))[s] equals the shifted
     power product summed over k, so evaluating the FFT correlation once
     gives the energy at ALL N lags and the D grid points are a cheap
-    column gather. On TPU this replaces the (D, N) shifted-spectrum
-    materialization (17 MB for UHF defaults) with M+1 matmul FFTs —
-    measured 2.3x faster at D=64 and the advantage grows with D.
+    column gather. This replaces the (D, N) shifted-spectrum
+    materialization (17 MB for UHF defaults) with M+1 FFTs.
 
     P: (N,) f32 power spectrum; Qf_ri: (M, 2, N) from ``make_qf_ri``;
     shift_idx_cols: (D,) int32 grid shifts; centre_shift: optional
@@ -108,12 +154,10 @@ def doppler_energy_corr_dft(P: jnp.ndarray, Qf_ri: jnp.ndarray, F_ri: jnp.ndarra
     """Doppler energy via a pruned-output DFT — the batched-throughput path.
 
     ``doppler_energy_corr`` evaluates the correlation at ALL N lags
-    (M four-step inverse FFTs) and then reads only D of them. Here the
-    inverse transform is evaluated ONLY at the D grid lags as one dense
-    (M, N) x (N, D) MXU contraction against the precomputed phasor
-    matrix ``F`` — ~7x fewer FLOPs at UHF defaults (M=8, D=64, by the
-    executed-FLOPs accounting in bench/profile_stages.stage_flops) and
-    no column gather. Only the real part is computed (the correlation
+    (M inverse FFTs) and then reads only D of them. Here the inverse
+    transform is evaluated ONLY at the D grid lags as one dense
+    (M, N) x (N, D) contraction against the precomputed phasor matrix
+    ``F``, with no column gather. Only the real part is computed (the correlation
     of two power spectra is real; the imag row was discarded anyway).
 
     A runtime grid recentre by ``centre_shift`` bins multiplies the
@@ -122,8 +166,7 @@ def doppler_energy_corr_dft(P: jnp.ndarray, Qf_ri: jnp.ndarray, F_ri: jnp.ndarra
     phasor's angle index (k*c) mod N is computed with the split
     k = 256*k_hi + k_lo so no int32 product overflows (k*c alone would
     reach 2^33 at STX shapes; the split caps products at N^2/256,
-    int32-safe for N <= 2^19 — guarded below, and the four-step FFT
-    ceiling is 2^18 anyway).
+    int32-safe for N <= 2^19 — guarded below).
 
     P: (N,) f32 power spectrum; Qf_ri: (M, 2, N) from ``make_qf_ri``;
     F_ri: (2, N, D) from ``make_corr_dft_F``. Returns (D, M) f32,
@@ -144,8 +187,6 @@ def doppler_energy_corr_dft(P: jnp.ndarray, Qf_ri: jnp.ndarray, F_ri: jnp.ndarra
         idx = jnp.mod(k_hi * jnp.mod(256 * c, N) + k_lo * c, N)
         ang = idx.astype(jnp.float32) * jnp.float32(2.0 * np.pi / N)
         mr, mi = cmul(mr, mi, jnp.cos(ang)[None, :], jnp.sin(ang)[None, :])
-    from pycusdr_tpu.ops.cfft import _mm
-
     E = _mm("mk,kd->md", mr, F_ri[0]) - _mm("mk,kd->md", mi, F_ri[1])
     return E.T / ABS_SUM_SCALE
 

@@ -1,7 +1,7 @@
 """Convolutional coding: CCSDS K=7 rate-1/2 encoder + Viterbi decoder.
 
 New capability over the reference (which ships no convolutional FEC).
-The decoder is written TPU-style: the 64-state trellis lives as a
+The decoder is written array-style: the 64-state trellis lives as a
 vector, each time step is one vectorized add-compare-select over
 precomputed branch-metric tables, and ``lax.scan`` walks the sequence —
 no per-state Python, fully jittable, batchable with ``vmap``. Traceback

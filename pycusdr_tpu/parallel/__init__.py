@@ -10,7 +10,7 @@ degrees of parallelism are expressed as axes of a single
 ==========  =============================================================
 mesh axis   what is sharded
 ==========  =============================================================
-"channel"   Rx antenna channels (data parallelism; the vote is an ICI
+"channel"   Rx antenna channels (data parallelism; the vote is a device
             all-gather + weighted majority instead of ZMQ + CPU loops)
 "dopp"      the Doppler-bin grid during carrier search and the
             matched-filter mask bank during demodulation (tensor

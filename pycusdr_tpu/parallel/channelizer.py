@@ -3,10 +3,10 @@
 New capability over the reference (BASELINE config #5): a critically
 sampled M-channel analysis filterbank that splits one wideband capture
 into M baseband channels at fs/M each — the front door for "64-channel
-wideband Rx, channels sharded over the mesh". TPU-native evaluation:
-the per-branch FIR is a K-tap shifted-accumulate over the (T, M)
-commutator matrix (pure VPU), and the cross-branch DFT runs through the
-same split-complex MXU FFT as the demodulator (ops/cfft).
+wideband Rx, channels sharded over the mesh". Evaluation: the
+per-branch FIR is a K-tap shifted-accumulate over the (T, M)
+commutator matrix (elementwise), and the cross-branch DFT runs through
+the same split-complex FFT wrappers as the demodulator (ops/cfft).
 
 The output of channel m is centred at m·fs/M; feed the channels into
 ``parallel.build_sharded_demod_step`` (blocks axis = channel) to

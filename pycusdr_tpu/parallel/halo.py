@@ -5,9 +5,9 @@ GPU: each block keeps the previous block's last ``2^overlap`` samples
 as its head (``demodulator_process.py:287,337``). Here a long capture
 is split into T hops sharded over the ``time`` mesh axis; the
 ``sigOverlap``-sample halo each block needs from its predecessor is
-exchanged between neighbour shards with ``jax.lax.ppermute`` (ICI),
-then every shard demodulates its local blocks independently — the TPU
-equivalent of the reference's sequence handling (SURVEY.md §2.5
+exchanged between neighbour shards with ``jax.lax.ppermute``,
+then every shard demodulates its local blocks independently — the
+mesh equivalent of the reference's sequence handling (SURVEY.md §2.5
 "Sequence/block parallelism").
 """
 

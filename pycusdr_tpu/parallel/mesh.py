@@ -24,7 +24,8 @@ def choose_mesh(n_devices: int, devices=None) -> Mesh:
     """Default 2-D (channel, dopp) factorisation of ``n_devices``.
 
     Channels get the larger factor (they are the embarrassingly parallel
-    axis); the doppler/mask axis rides the inner, fastest ICI dimension.
+    axis); the doppler/mask axis takes a factor of 2 once there are at
+    least four devices.
     """
     nd = 2 if (n_devices % 2 == 0 and n_devices >= 4) else 1
     nc = n_devices // nd

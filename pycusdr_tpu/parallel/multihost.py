@@ -2,10 +2,11 @@
 
 The reference distributes across hosts with ZMQ over TCP (remote
 decoder via ``demodOutExternal``, dispersed ground stations feeding one
-softCombiner — SURVEY §2.5). Here the TPU-native story is a pod slice:
-``jax.distributed`` + a global mesh where the ``channel`` axis spans
-hosts (each ground station contributes its local chips' channels), ICI
-carries the intra-host collectives and DCN the cross-host ones. ZMQ
+softCombiner — SURVEY §2.5). Here the story is one distributed JAX
+program: ``jax.distributed`` + a global mesh where the ``channel`` axis
+spans hosts (each ground station contributes its local devices'
+channels), the intra-host interconnect carries the intra-host
+collectives and the network the cross-host ones. ZMQ
 stays only at the RF edge (each host's GNU Radio feeds its local
 channels); the vote that softCombiner did over TCP becomes the
 ``all_gather`` in ``parallel.sharded_demod``.
@@ -57,7 +58,8 @@ def make_global_mesh(dopp: int = 1):
 
     The channel axis is laid out host-major so each host's Rx channels
     map to its local chips — halo and vote collectives between channels
-    of one station ride ICI, only the cross-station vote crosses DCN.
+    of one station stay on its host, only the cross-station vote crosses
+    the network.
     """
     import jax
     from jax.sharding import Mesh

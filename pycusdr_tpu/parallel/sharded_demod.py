@@ -11,7 +11,7 @@ CPU softCombiner vote (``softCombiner.py:570-618``):
   parallelism over the search dimension). The only cross-shard traffic
   is tiny: an all-gather of the (D, M) energy matrix, a psum of the
   timing power waveform, an all-gather of per-slot window maxima, and
-  the final all-gather of soft bits for the vote — all riding ICI.
+  the final all-gather of soft bits for the vote.
 
 Per-stage parity citations are in ``pycusdr_tpu.ops`` / ``dsp.block``;
 this module only adds the sharding decomposition.
@@ -87,8 +87,7 @@ def _local_find_centres(P2_local, spSym, codeOffset, *, Nfft, windowWidth, spsym
 
     packed = jnp.stack([Vt[0], payload[0]], axis=1)  # (N+W, 2)
     if select_route == "onehot":
-        # latency mode (single-block streaming dispatch): bit-exact
-        # one-hot MXU row select, ~2x faster unbatched (see
+        # bit-exact one-hot row select (see
         # ops.demod_kernels._select_rows_onehot)
         from pycusdr_tpu.ops.demod_kernels import _select_rows_onehot
 
@@ -156,7 +155,7 @@ def _build_channel_parallel_step(spec: DemodSpec, mesh, vote: bool,
 
     def run_impl(blocks):
         blocks = jax.lax.with_sharding_constraint(blocks, blocks_sharding)
-        # matmul dtype is pinned inside build_process_block via
+        # contraction dtype is pinned inside build_process_block via
         # spec.matmul_dtype, so no extra wrapper is needed here
         return sharded(blocks)
 
@@ -179,16 +178,11 @@ def build_sharded_demod_step(spec: DemodSpec, mesh, vote: bool = True,
     with the mask rows of ``Qf`` sharded over the ``dopp`` mesh axis
     and the phasor matrix ``F`` replicated, so each shard contracts
     (Ml, N) x (N, D) and the cross-shard traffic stays one tiny (D, M)
-    all-gather. (The former narrow-grid shifted-spectrum branch is
-    gone for the same reason the single-chip default changed: the
-    (D, N) fancy gather serializes on the TPU backend — 7.3 ms vs
-    ~40 µs at D=16, see dsp/block.py CORR_ROUTE_MIN_D note.)
+    all-gather.
     ``select_route``: slot-read evaluation in the local symbol argmax —
-    "gather" (default; the one-hot alternative lost its B=1 edge once
-    it had to run at precision=HIGHEST, see dsp/block.py) or "onehot"
-    for A/B measurement.
+    "gather" (default) or "onehot" for A/B measurement.
 
-    The DFT-factor matmul dtype follows ``spec.matmul_dtype`` (the
+    The Doppler contraction's operand dtype follows ``spec.matmul_dtype`` (the
     config's ``matmulDtype`` knob), pinned at trace time exactly like
     the single-chip graph, so a bf16 deployment runs the same numerics
     sharded and unsharded.
@@ -213,10 +207,7 @@ def build_sharded_demod_step(spec: DemodSpec, mesh, vote: bool = True,
         # tensor-parallel split to reconcile, so run the EXACT
         # single-chip graph vmapped over the local channels — same
         # routes, same fusion, bit-identical by construction — and keep
-        # only the vote collective. The generic two-stage local/global
-        # argmax below costs ~25% at B=16 (514 vs 718 Msps/chip
-        # measured) purely in formulation, not communication.
-        # ``force_generic`` keeps the generic program measurable on a
+        # only the vote collective. ``force_generic`` keeps the generic program measurable on a
         # 1-device mesh (bench/scaling.py --generic).
         return _build_channel_parallel_step(spec, mesh, vote, master_idx,
                                             master_weight)
@@ -299,10 +290,10 @@ def build_sharded_demod_step(spec: DemodSpec, mesh, vote: bool = True,
 
         # --- demod with the mask bank sharded over "dopp" ---
         if off_m == 0:
-            # fused mask-axis reductions (same epilogue fusion as the
-            # single-chip fused bank route): the local (Cl, Ml, N) power
-            # tensor never reaches HBM; its three consumers (timing sum,
-            # detection max/argmax) come straight from the transform.
+            # fused mask-axis reductions (same as the single-chip fused
+            # bank route): the three consumers of the local (Cl, Ml, N)
+            # power (timing sum, detection max/argmax) come straight
+            # from the transform.
             # Gated on CODE_SEARCH_MASK_OFFSET == 0 because the fused
             # subset sum needs static LOCAL bounds and a nonzero offset
             # intersects the shard range at a runtime shard index.
@@ -321,8 +312,11 @@ def build_sharded_demod_step(spec: DemodSpec, mesh, vote: bool = True,
                 lambda s, sh_: apply_best_doppler_power(s, masks_l, sh_)
             )(S, shift)  # (Cl, Ml, N)
 
+            # HIGHEST: a 0/1 mask-weight sum must stay true f32 (the GPU
+            # would otherwise be free to run it in TF32)
             power = jax.lax.psum(
-                jnp.einsum("m,cmn->cn", w_mask_l, P2), "dopp"
+                jnp.einsum("m,cmn->cn", w_mask_l, P2,
+                           precision=jax.lax.Precision.HIGHEST), "dopp"
             )  # (Cl, N) summed matched-filter power, mask subset
 
         # output-pruned band DFT (see ops.cfft.band_dft_real): only the
@@ -479,10 +473,10 @@ def build_sharded_demod_step(spec: DemodSpec, mesh, vote: bool = True,
     def run_impl(blocks):
         blocks = jax.lax.with_sharding_constraint(blocks, blocks_sharding)
         if spec.matmul_dtype is not None:
-            # pin the DFT-factor operand dtype at TRACE time, same as
+            # pin the contraction operand dtype at TRACE time, same as
             # dsp.block.build_process_block — sharded and single-chip
             # deployments of one config must run the same numerics
-            from pycusdr_tpu.ops.cfft import matmul_dtype
+            from pycusdr_tpu.ops.doppler_search import matmul_dtype
 
             with matmul_dtype(spec.matmul_dtype):
                 return sharded(blocks, *dev_consts)

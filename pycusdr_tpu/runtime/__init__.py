@@ -3,8 +3,8 @@
 The modem runs as a pipeline of OS processes connected by ZMQ, exactly
 like the reference (SURVEY.md §1 L2/L3): IQ samples PUB/SUB in from
 GNU Radio, soft-bit dicts PUSH/PULL between stages, decoded bytes PUSH
-out, complex64 Tx waveforms PUSH back to GNU Radio. The TPU is used by
-exactly one stage (the demodulator), whose whole per-block computation
+out, complex64 Tx waveforms PUSH back to GNU Radio. The accelerator is
+used by exactly one stage (the demodulator), whose whole per-block computation
 is one jitted graph (``dsp.block``) — multi-chip variants live in
 ``pycusdr_tpu.parallel``.
 """

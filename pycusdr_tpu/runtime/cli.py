@@ -13,7 +13,7 @@ from pycusdr_tpu import __version__
 def build_argparser():
     p = argparse.ArgumentParser(
         prog="pycusdr_tpu",
-        description="TPU-native software-defined-radio modem for satellite ground stations",
+        description="Software-defined-radio modem for satellite ground stations",
     )
     p.add_argument("-c", "--configFile", required=True, help="modular JSON config file")
     p.add_argument("-v", action="count", default=0, dest="v",

@@ -83,12 +83,13 @@ class Decoder(Process):
     def run(self):
         import zmq
 
-        from pycusdr_tpu.globals import apply_platform_override
+        from pycusdr_tpu.globals import pin_host_stage_to_cpu
         from pycusdr_tpu.utils.logger import child_logger_setup
 
+        # the frame finder may lazily import jax (streaming Viterbi
+        # preprocessor): it runs on the CPU, never on the card
+        pin_host_stage_to_cpu()
         child_logger_setup(self.logLevel)
-        apply_platform_override()  # the frame finder may lazily import
-        # jax (streaming Viterbi preprocessor) — honor the env override
 
         ctx = zmq.Context()
         log.info("Configuring decoder input socket: %s", self.decodeInAddr)

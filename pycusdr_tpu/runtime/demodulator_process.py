@@ -1,4 +1,4 @@
-"""Per-channel Rx process: stream blocks from ZMQ into the TPU demod
+"""Per-channel Rx process: stream blocks from ZMQ into the device demod
 graph and ship soft bits downstream.
 
 Capability parity with the reference ``Demodulator_process``
@@ -7,7 +7,7 @@ per-block worker dict with the same keys, Tx/Rx IF offset + rangerate
 computation, spSym-gated running stats behind locked
 ``multiprocessing.Value`` properties for the RPC thread, optional
 duplicate PUSH to an external (remote) decoder, and GRC-timeout
-signalling via an Event. The TPU device context (JAX backend + jitted
+signalling via an Event. The device context (JAX backend + jitted
 block graph) is created INSIDE the child process, mirroring the
 reference's per-process CUDA context (``demodulator_process.py:242``).
 """
@@ -24,7 +24,7 @@ import scipy.constants
 
 # The demodulator child owns a JAX device context. Forking a parent
 # whose JAX runtime is already initialized can deadlock XLA's thread
-# pools, so this process uses the spawn start method — the TPU backend
+# pools, so this process uses the spawn start method — the device backend
 # comes up fresh inside the child, mirroring the reference's
 # in-child CUDA context creation (demodulator_process.py:242).
 _mp = multiprocessing.get_context("spawn")
@@ -53,8 +53,13 @@ def _resolve_backend(name):
 
 
 class Demodulator_process(Process):
-    def __init__(self, conf, protocol, radio):
+    def __init__(self, conf, protocol, radio, memFraction=None):
+        """``memFraction``: share of the card's memory this child's JAX
+        client may reserve (``XLA_PYTHON_CLIENT_MEM_FRACTION``), set by
+        the orchestrator when several demod children share one card;
+        None keeps JAX's default for a lone process."""
         Process.__init__(self)
+        self.memFraction = memFraction
         self.timeMA = 0.0
         self.iterCount = 0
 
@@ -147,6 +152,12 @@ class Demodulator_process(Process):
     def GRCTimeout(self):
         return self.GRCTimeoutFlag.is_set()
 
+    def device_env(self):
+        """Environment the child sets before its JAX client starts."""
+        if self.memFraction is None:
+            return {}
+        return {"XLA_PYTHON_CLIENT_MEM_FRACTION": f"{self.memFraction:.3f}"}
+
     def computeMATime(self, t):
         self.iterCount += 1
         self.timeMA = self.timeMA + (t - self.timeMA) / self.iterCount
@@ -155,6 +166,7 @@ class Demodulator_process(Process):
     # ---------------- main loop (child process) ----------------
 
     def run(self):
+        os.environ.update(self.device_env())  # before JAX opens the card
         import zmq  # contexts must be created in the child
 
         from pycusdr_tpu.runtime import sigfifo
@@ -185,43 +197,21 @@ class Demodulator_process(Process):
         try:
             # the JAX device context + compiled graph live in THIS process
             from pycusdr_tpu.globals import apply_platform_override
+            from pycusdr_tpu.utils.device_info import configure_compile_cache
 
             apply_platform_override()
-            # Persistent compile cache, ON BY DEFAULT (config
-            # TPU.compilationCacheDir; "" disables): read-back is PROVEN
-            # on this backend — a restarted child reaches ready in
-            # ~17-28 s from the disk cache vs ~77 s cold
-            # (results/tmp/probe_cache_r5.py), which is what makes
-            # RSS-cap planned restarts cheap.
-            cache_dir = self.confGPU.get("TPU", {}).get(
-                "compilationCacheDir", None)
-            if cache_dir is None:
-                # default ON only for accelerator backends: XLA:CPU AOT
-                # cache entries record compile-machine features that can
-                # mismatch the host (observed: +prefer-no-scatter ->
-                # "could lead to SIGILL" on child load), and CPU
-                # compiles are seconds anyway
-                import jax
-
-                if jax.default_backend() != "cpu":
-                    cache_dir = os.path.join(
-                        os.path.expanduser("~"), ".cache", "pycusdr_tpu",
-                        "xla_cache")
-            if cache_dir:
-                import jax
-
-                os.makedirs(cache_dir, exist_ok=True)
-                jax.config.update("jax_compilation_cache_dir", cache_dir)
-                jax.config.update(
-                    "jax_persistent_cache_min_compile_time_secs", 1.0)
+            # persistent compile cache: a restarted child reloads its
+            # graphs instead of compiling them again
+            configure_compile_cache(self.confGPU.get("TPU", {}).get(
+                "compilationCacheDir"))
             backend = _resolve_backend(self.demodulatorName)
             demod = backend.Demodulator(self.conf, self.protocol, self.radioName)
 
             # Compile AND run every graph this loop can dispatch BEFORE
-            # the SUB socket subscribes: the ~25-55 s first-compile
-            # otherwise accumulates ZMQ backlog past the ring (the
-            # round-3 "warm-up seam" — a modem restart mid-pass lost
-            # the bursts that arrived while the child compiled).
+            # the SUB socket subscribes: a first compile otherwise
+            # accumulates ZMQ backlog past the ring (a modem restart
+            # mid-pass would lose the bursts that arrived while the
+            # child compiled).
             t0 = time.time()
             demod.warmup()  # single-block (pipelined) path
             if maxBatch > 1:

@@ -65,11 +65,11 @@ class Modulator_process(Process):
     def run(self):
         import zmq
 
-        from pycusdr_tpu.globals import apply_platform_override
+        from pycusdr_tpu.globals import pin_host_stage_to_cpu
         from pycusdr_tpu.utils.logger import child_logger_setup
 
+        pin_host_stage_to_cpu()
         child_logger_setup(self.logLevel)
-        apply_platform_override()
         time.sleep(0.5)
         ctx = zmq.Context()
         interfaces = self.confRadio.get("Interfaces", {})

@@ -3,7 +3,7 @@
 Capability parity with the reference's ``pyCuSDR/lib/filters.py:6-85``
 (MATLAB ``rcosdesign``-style root-raised-cosine and a Gaussian pulse
 filter). Filter taps are built once at init time on the host and then
-live on the TPU as matched-filter banks, so plain numpy is the right
+live on the device as matched-filter banks, so plain numpy is the right
 tool here.
 """
 

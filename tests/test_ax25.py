@@ -104,7 +104,7 @@ def test_ax25_full_modem_loop(bench_conf):
 
     proto = loadProtocol("AX25")(conf=conf)
     mod = Modulator(conf, conf["Radios"]["Tx"]["UHF"], proto)
-    payload = np.frombuffer(b"HELLO VIA AX25 FROM THE TPU MODEM " * 3, np.uint8)
+    payload = np.frombuffer(b"HELLO VIA AX25 FROM THE JAX MODEM " * 3, np.uint8)
     wave = mod.encodeAndModulate(payload)
 
     from pycusdr_tpu.dsp.signal_gen import awgn
@@ -142,7 +142,7 @@ def test_ax25_gmsk_variant_full_loop(bench_conf):
     proto = loadProtocol("AX25")(conf=conf)
     assert proto.modulation == "GMSK"
     mod = Modulator(conf, conf["Radios"]["Tx"]["UHF"], proto)
-    payload = np.frombuffer(b"G3RUH AX25 OVER GMSK ON TPU ", np.uint8)
+    payload = np.frombuffer(b"G3RUH AX25 OVER GMSK ON JAX ", np.uint8)
     wave = mod.encodeAndModulate(payload)
     rng = np.random.RandomState(6)
     sig = awgn(wave.astype(np.complex64), 22.0, rng=rng).astype(np.complex64)

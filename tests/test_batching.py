@@ -368,3 +368,35 @@ def test_process_capture_matches_streaming(bench_conf):
     np.testing.assert_allclose(
         dC.get_signalBufferHostPointer()[:ov],
         dA.get_signalBufferHostPointer()[:ov], rtol=1e-6, atol=1e-7)
+
+
+def test_batch16_rows_match_single_dispatch():
+    """Row k of a B=16 build_process_batch dispatch equals a single
+    dispatch of block k on every output the streaming runtime consumes
+    (the analog estimates may differ in the last ulps between shapes)."""
+    import __graft_entry__ as g
+    from chip_smoke import DECISION_KEYS
+    from pycusdr_tpu.dsp.block import (
+        build_process_batch,
+        build_process_block,
+        unpack_block_outputs,
+    )
+    from pycusdr_tpu.ops.cfft import c2ri
+
+    spec = g.tiny_spec()
+    rng = np.random.RandomState(12)
+    blocks = []
+    for k in range(16):
+        bits = rng.randint(0, 2, spec.Nfft // int(spec.spsym) + 1)
+        off = (spec.centreFreqOffset + 300.0 * (k - 8)) / spec.sampleRate
+        blocks.append(make_fsk_signal(bits, int(spec.spsym), off, seed=k,
+                                      noise_std=0.1)[: spec.Nfft])
+    x = c2ri(np.stack(blocks))
+    single = build_process_block(spec, latency_mode=True, packed=True)
+    rows = np.asarray(build_process_batch(spec, packed=True)(x))
+    assert rows.shape[0] == 16
+    for k in range(16):
+        a = unpack_block_outputs(np.asarray(single(x[k])), spec)
+        b = unpack_block_outputs(rows[k], spec)
+        for q in DECISION_KEYS:
+            np.testing.assert_array_equal(a[q], b[q], err_msg=f"row {k}: {q}")

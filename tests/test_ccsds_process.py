@@ -67,6 +67,10 @@ def test_concatenated_ccsds_through_processes():
         deadline = time.time() + 60
         while time.time() < deadline and not all(t.is_alive() for t in sdr.tasks):
             time.sleep(0.2)
+        # the demod child compiles before it subscribes to the feed; a
+        # loaded host can take longer than the fixed settle below
+        for d in sdr.demodulators:
+            d.warmedFlag.wait(120)
         time.sleep(4.0)
 
         payload = np.frombuffer(b"PROCESS-LEVEL CONCATENATED FRAME " * 7, np.uint8)[:223]

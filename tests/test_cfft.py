@@ -1,7 +1,7 @@
-"""Split-complex FFT core (ops/cfft): the TPU replacement for the
+"""Split-complex FFT wrappers (ops/cfft): the counterpart of the
 reference's cuFFT binding (lib/cufft.py). Golden vs numpy across sizes,
-both evaluation paths (Stockham butterflies and the four-step matmul
-FFT), batching, and the packed real-input transform."""
+batching, the real-input transforms, the timing band and the mask-axis
+colreduce."""
 
 import numpy as np
 import pytest
@@ -9,14 +9,13 @@ import pytest
 import jax
 
 from pycusdr_tpu.ops.cfft import (
-    FOUR_STEP_MAX,
-    FOUR_STEP_MIN,
-    _four_step,
-    _stockham,
     band_dft_real,
     c2ri,
     cmul,
+    fft_real_ri,
     fft_ri,
+    ifft_unnorm_power_colreduce_ri,
+    ifft_unnorm_power_ri,
     ifft_unnorm_ri,
     ri2c,
     rfft_ri,
@@ -75,46 +74,68 @@ def test_band_dft_real_batched():
     assert np.max(np.abs(B - ref)) / np.max(np.abs(ref)) < 2e-6
 
 
-def test_both_paths_agree():
-    """Stockham and four-step must agree inside the crossover band."""
-    n = 4096
-    rng = np.random.RandomState(7)
-    re = rng.randn(n).astype(np.float32)
-    im = rng.randn(n).astype(np.float32)
-    sr, si = _stockham(re, im, n, -1.0)
-    fr, fi = _four_step(re, im, n, -1.0)
-    ref = np.abs(np.asarray(sr) + 1j * np.asarray(si)).max()
-    err = np.max(np.abs((np.asarray(sr) - np.asarray(fr))
-                        + 1j * (np.asarray(si) - np.asarray(fi))))
-    assert err / ref < 2e-6
-    assert FOUR_STEP_MIN <= n <= FOUR_STEP_MAX
-
-
-@pytest.mark.parametrize("n", [256, 4096, 65536])
-def test_block_four_step_route(n):
-    """The one-block-matmul-per-stage four-step (FOUR_STEP_ROUTE='block')
-    matches numpy for the forward, real-input forward, and power-fused
-    inverse transforms."""
-    import pycusdr_tpu.ops.cfft as cf
-
+@pytest.mark.parametrize("n", [1 << 8, 1 << 12, 1 << 16, 1 << 17])
+def test_split_wrappers_match_numpy(n):
+    """Every split wrapper equals numpy's transform, 2^8 to 2^17 (the
+    STX block length), on a batch of two rows."""
     rng = np.random.RandomState(n + 9)
     x = (rng.randn(2, n) + 1j * rng.randn(2, n)).astype(np.complex64)
-    old = cf.FOUR_STEP_ROUTE
-    cf.FOUR_STEP_ROUTE = "block"
-    try:
-        X = ri2c(np.asarray(cf.fft_ri(c2ri(x))))
-        ref = np.fft.fft(x.astype(np.complex128), axis=-1)
-        assert np.max(np.abs(X - ref)) / np.max(np.abs(ref)) < 2e-6
+    x128 = x.astype(np.complex128)
 
-        R = ri2c(np.asarray(cf.fft_real_ri(np.asarray(x.real, np.float32))))
-        rref = np.fft.fft(x.real.astype(np.float64), axis=-1)
-        assert np.max(np.abs(R - rref)) / np.max(np.abs(rref)) < 2e-6
+    def rel(got, ref):
+        return np.max(np.abs(got - ref)) / np.max(np.abs(ref))
 
-        P = np.asarray(cf.ifft_unnorm_power_ri(c2ri(x)))
-        pref = np.abs(np.fft.ifft(x.astype(np.complex128), axis=-1) * n) ** 2
-        assert np.max(np.abs(P - pref)) / pref.max() < 4e-6
-    finally:
-        cf.FOUR_STEP_ROUTE = old
+    assert rel(ri2c(jax.jit(fft_ri)(c2ri(x))), np.fft.fft(x128, axis=-1)) < 2e-6
+    r = x.real.astype(np.float32)
+    R = ri2c(jax.jit(fft_real_ri)(r))
+    assert rel(R, np.fft.fft(r.astype(np.float64), axis=-1)) < 2e-6
+    assert rel(ri2c(jax.jit(rfft_ri)(r)), np.fft.rfft(r.astype(np.float64), axis=-1)) < 2e-6
+    inv = ri2c(jax.jit(ifft_unnorm_ri)(c2ri(x)))
+    assert rel(inv, np.fft.ifft(x128, axis=-1) * n) < 2e-6
+    P = np.asarray(jax.jit(ifft_unnorm_power_ri)(c2ri(x)))
+    pref = np.abs(np.fft.ifft(x128, axis=-1) * n) ** 2
+    assert P.shape == (2, n)
+    assert np.max(np.abs(P - pref)) / pref.max() < 4e-6
+
+
+@pytest.mark.parametrize("sum_lo,sum_hi", [(0, 8), (1, 7)])
+def test_colreduce_matches_plain_reduction(sum_lo, sum_hi):
+    """The mask-axis colreduce equals plain reductions of the power
+    bit for bit (the fused and two-step bank routes rely on it), and
+    numpy to f32 tolerance; argmax ties go to the lowest mask."""
+    import jax.numpy as jnp
+
+    n, M = 4096, 8
+    rng = np.random.RandomState(sum_lo + 31)
+    x = (rng.randn(3, M, n) + 1j * rng.randn(3, M, n)).astype(np.complex64)
+    x[:, 5] = x[:, 2]  # exact tie between masks 2 and 5
+    xri = c2ri(x)
+    cs, cm, ca = jax.jit(lambda v: ifft_unnorm_power_colreduce_ri(
+        v, sum_lo, sum_hi))(xri)
+
+    def plain(v):
+        p = ifft_unnorm_power_ri(v)
+        return (jnp.sum(p[..., sum_lo:sum_hi, :], axis=-2), jnp.max(p, axis=-2),
+                jnp.argmax(p, axis=-2).astype(jnp.int32))
+
+    ps, pm, pa = jax.jit(plain)(xri)
+    np.testing.assert_array_equal(np.asarray(cs), np.asarray(ps))
+    np.testing.assert_array_equal(np.asarray(cm), np.asarray(pm))
+    np.testing.assert_array_equal(np.asarray(ca), np.asarray(pa))
+    assert not np.any(np.asarray(ca) == 5)
+
+    pref = np.abs(np.fft.ifft(x.astype(np.complex128), axis=-1) * n) ** 2
+    sref = pref[:, sum_lo:sum_hi].sum(axis=1)
+    assert np.max(np.abs(np.asarray(cs) - sref)) / sref.max() < 4e-6
+    assert np.max(np.abs(np.asarray(cm) - pref.max(axis=1))) / pref.max() < 4e-6
+
+
+def test_band_dft_real_rejects_band_outside_rfft():
+    r = np.zeros(512, np.float32)
+    with pytest.raises(ValueError):
+        band_dft_real(r, 10, 258)
+    with pytest.raises(ValueError):
+        band_dft_real(r, 5, 5)
 
 
 def test_batched_and_multidim():

@@ -224,7 +224,7 @@ def combiner_conf(bench_conf):
 class TestSoftCombinerProcess:
     """Process-level tests through real ZMQ sockets (reference
     test_softCombiner.py pattern): N logical channels are N streams
-    into one combiner, no radios or TPUs needed."""
+    into one combiner, no radios or accelerators needed."""
 
     def _run_streams(self, conf, streams, n_blocks=6, voteGroup=0):
         ctx = zmq.Context()

@@ -1,4 +1,4 @@
-"""Golden tests: numpy reference chain vs the jitted TPU graph, and the
+"""Golden tests: numpy reference chain vs the jitted device graph, and the
 Parseval shortcut vs the literal lag-domain evaluation."""
 
 import numpy as np
@@ -27,7 +27,7 @@ def best_aligned_ber(rx_bits, tx_bits, max_shift=8):
 
 
 def test_parseval_identity():
-    """The MXU matmul Doppler energy == the reference's IFFT + lag-sum."""
+    """The matmul Doppler energy == the reference's IFFT + lag-sum."""
     rng = np.random.RandomState(0)
     N = 512
     sig = (rng.randn(N) + 1j * rng.randn(N)).astype(np.complex64)

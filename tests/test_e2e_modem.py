@@ -1,5 +1,5 @@
 """End-to-end modem tests: modulated packet -> streamed overlap-save
-blocks -> TPU demodulator -> frame finder -> bit-exact packet.
+blocks -> device demodulator -> frame finder -> bit-exact packet.
 
 This is the in-process equivalent of the reference BER harness
 (examples/benchmark/bench_modem.py) at high SNR: the decoded packet must

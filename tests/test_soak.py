@@ -49,7 +49,7 @@ def test_soak_process_pipeline():
         "decodeOut": "tcp://localhost:29704", "decodeIn": "tcp://*:29704",
     })
     conf["Interfaces"]["External"]["decodeBytesOut_ZMQ"] = {"UHF": "tcp://*:29712"}
-    conf["Interfaces"]["External"]["XMLRpcIn"] = "127.0.0.1:29851"
+    conf["Interfaces"]["External"]["XMLRpcIn"] = "127.0.0.1:29861"
     conf["decoder"] = dict(conf.get("decoder", {}), statsPort=29903)
 
     ctx = zmq.Context()
